@@ -1,6 +1,6 @@
-"""Regression guard for the silent-CPU-leak class (round 3's measurement
-bug): arrays committed to the CPU backend by a host-fallback stage must be
-caught before they drag downstream jits onto the host."""
+"""Regression guard for the silent-CPU-leak class: arrays committed to the
+CPU backend by a stage must be caught before they drag downstream jits onto
+the host."""
 
 import numpy as np
 import pytest
@@ -18,7 +18,7 @@ def test_noop_on_cpu_backend():
 
 def test_flags_cpu_committed_arrays(monkeypatch):
     x = jax.device_put(jnp.ones(3), jax.devices("cpu")[0])
-    monkeypatch.setattr(device_guard, "_default_platform", lambda: "tpu")
+    monkeypatch.setattr(device_guard, "_default_platform", lambda: "gpu")
     with pytest.raises(device_guard.DevicePlacementError) as err:
         device_guard.assert_on_accelerator({"ERI": x}, stage="integral generation")
     assert "ERI" in str(err.value)
@@ -27,9 +27,8 @@ def test_flags_cpu_committed_arrays(monkeypatch):
 
 def test_respects_default_device_scope():
     """Inside jax.default_device(cpu) -- the deliberately host-pinned guess
-    stage -- CPU placement is the INTENT, not a leak (found live on the TPU
-    backend 2026-08-18: the guard aborted every warm CLI start inside the
-    pinned minimal-basis SCF)."""
+    stage -- CPU placement is the INTENT, not a leak (the guard must not
+    abort the pinned minimal-basis SCF)."""
     cpu0 = jax.devices("cpu")[0]
     with jax.default_device(cpu0):
         assert device_guard._default_platform() == "cpu"
@@ -39,7 +38,7 @@ def test_respects_default_device_scope():
 
 
 def test_skips_none_and_host_data(monkeypatch):
-    monkeypatch.setattr(device_guard, "_default_platform", lambda: "tpu")
+    monkeypatch.setattr(device_guard, "_default_platform", lambda: "gpu")
     # None entries (DIRECT defers the ERI) and plain numpy arrays (host-side
     # metadata) must not trip the guard.
     assert device_guard._offending_devices(np.ones(3)) is None

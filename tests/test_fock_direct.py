@@ -83,23 +83,3 @@ def test_direct_scf_matches_stored(line_pair):
     E_stored = run(stored, suppress_output=True)[2]
     E_direct = run(direct, suppress_output=True)[2]
     assert abs(E_stored - E_direct) < 1e-9, (E_stored, E_direct)
-
-
-def test_direct_host_driven_macro_iteration_matches(monkeypatch):
-    """The host-driven DIRECT macro-iteration (scf.run_scf_cycles_host +
-    dispatch-per-block Fock sweep; the TPU f-shell path) advances the same
-    jitted body as the while_loop kernel -- energies must match exactly."""
-    from tuna_tpu.cli import run
-
-    monkeypatch.setenv("TUNA_TPU_DIRECT_HOST", "1")
-    E_host = run("SPE : N N 1.1 : HF 6-31G : DIRECT TIGHTSCF",
-                 suppress_output=True)[2]
-    E_host_u = run("SPE : O O 1.2 : UHF 6-31G : DIRECT TIGHTSCF M 3",
-                   suppress_output=True)[2]
-    monkeypatch.delenv("TUNA_TPU_DIRECT_HOST")
-    E_loop = run("SPE : N N 1.1 : HF 6-31G : DIRECT TIGHTSCF",
-                 suppress_output=True)[2]
-    E_loop_u = run("SPE : O O 1.2 : UHF 6-31G : DIRECT TIGHTSCF M 3",
-                   suppress_output=True)[2]
-    assert abs(float(E_host) - float(E_loop)) < 1e-10
-    assert abs(float(E_host_u) - float(E_loop_u)) < 1e-10

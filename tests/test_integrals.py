@@ -1,4 +1,4 @@
-"""Parity tests for the TPU-native integral engine against an independent
+"""Parity tests for the on-device integral engine against an independent
 NumPy McMurchie-Davidson oracle (tests/oracle_integrals.py)."""
 
 import numpy as np
@@ -95,33 +95,3 @@ def test_normalisation():
         plan = IntegralPlan(mol.cartesian_basis_functions, mol.n_atoms)
         S = np.array(plan.one_electron(mol.coordinates, mol.charges.astype(float), mol.centre_of_mass)[0])
         np.testing.assert_allclose(np.diag(S), np.ones(len(S)), atol=1e-12)
-
-
-def test_dispatch_sweep_matches_scan():
-    """The dispatch-per-chunk ERI/Fock sweep (the f-shell default on
-    accelerators, where the lax.scan-over-chunks program faults the TPU
-    worker -- tools/eri_fault_bisect.py) is numerically identical to the
-    scanned sweep."""
-    import jax
-    import jax.numpy as jnp
-
-    mol, _ = make_molecule(["H", "F"], 0.95, "6-31G**")
-    plan = IntegralPlan(mol.cartesian_basis_functions, mol.n_atoms,
-                        eri_row_chunk=16)
-    coords = jnp.asarray(mol.coordinates)
-
-    pair_scan = np.array(jax.jit(plan._eri_pair_impl)(coords))
-    pair_disp = np.array(plan._eri_pair_dispatch(coords))
-    np.testing.assert_allclose(pair_disp, pair_scan, rtol=0, atol=1e-13)
-
-    eri_disp = np.array(plan._eri_dispatch(coords))
-    eri_scan = np.array(jax.jit(plan._eri_impl)(coords))
-    np.testing.assert_allclose(eri_disp, eri_scan, rtol=0, atol=1e-13)
-
-    rng = np.random.default_rng(7)
-    P = rng.standard_normal((plan.n_basis, plan.n_basis))
-    P = (P + P.T) / 2
-    J_s, K_s = jax.jit(plan._fock_direct_impl)(coords, jnp.asarray(P))
-    J_d, K_d = plan._fock_direct_dispatch(coords, jnp.asarray(P))
-    np.testing.assert_allclose(np.array(J_d), np.array(J_s), atol=1e-12)
-    np.testing.assert_allclose(np.array(K_d), np.array(K_s), atol=1e-12)

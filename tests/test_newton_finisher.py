@@ -1,7 +1,7 @@
 """The mixed-precision Newton--Krylov CC finisher must reach the same fixed
 point as the pure-f64 while_loop solver, starting from an f32-converged
-amplitude set.  This is the accelerator production path (post/cc.py), tested
-here on CPU where both routes are exact."""
+amplitude set.  The driver no longer routes to this solver (the f64
+while_loop serves every backend), so these tests call it directly."""
 
 import time
 
@@ -84,39 +84,6 @@ def test_newton_matches_f64_solver(n2_sto3g, method):
     assert float(jnp.max(jnp.abs(t2_n - t2_64))) < 1e-8
 
 
-def test_newton_with_ozaki_residual(n2_sto3g):
-    """The accelerator production path routes the finisher's f64 residual
-    through ops.ozaki slice matmuls; the fixed point must be unchanged."""
-    import dataclasses
-
-    cfg, g, F, d1, d2, o, v = n2_sto3g
-    settings = _settings(cfg, "CCSD", o, v, d2)
-    solver = get_cc_solver(settings)
-    finisher_oz = get_newton_finisher(
-        dataclasses.replace(settings, use_ozaki=True))
-
-    t1_0 = d1 * F[o, v]
-    t2_0 = g[o, o, v, v] * d2
-    dummy, d3 = jnp.zeros((1, 1)), jnp.zeros((1,))
-    (_, conv64, _, E64, _, t2_64, _, _, _) = solver(
-        g, F, d1, d2, t1_0, t2_0, dummy, dummy, dummy, d3, 1e-10, 1e-8)
-    assert bool(conv64)
-
-    f32 = lambda x: jnp.asarray(x, dtype=jnp.float32)
-    (_, convw, _, _, t1_w, t2_w, _, _, _) = solver(
-        f32(g), f32(F), f32(d1), f32(d2), f32(t1_0), f32(t2_0),
-        f32(dummy), f32(dummy), f32(dummy), f32(d3), 1e-6, 1e-4)
-    assert bool(convw)
-
-    (nn, convn, failn, En, _, t2_n, _, _) = finisher_oz(
-        g, F, d1, d2, jnp.asarray(t1_w, dtype=jnp.float64),
-        jnp.asarray(t2_w, dtype=jnp.float64), dummy, dummy, dummy, d3,
-        1e-10, 1e-8)
-    assert bool(convn) and not bool(failn)
-    assert abs(float(En) - float(E64)) < 1e-10
-    assert float(jnp.max(jnp.abs(t2_n - t2_64))) < 1e-8
-
-
 def test_newton_from_unconverged_start(n2_sto3g):
     """Starting further from the fixed point (raw MP2 guess in f64), Newton
     must still converge -- more steps, same answer."""
@@ -147,13 +114,29 @@ def test_newton_from_unconverged_start(n2_sto3g):
     "SPE : LI H 1.6 : CC3 STO-3G : TIGHTSCF",
 ])
 def test_production_driver_path(monkeypatch, line):
-    """End-to-end driver coverage of the accelerator production path (fused
-    f32 warm + ozaki Newton finisher), forced on CPU by faking the backend:
-    must reproduce the pure-f64 path for restricted AND unrestricted CC."""
+    """The fused f32 warm + Newton finisher production solve, called with
+    exactly the operands the CC driver builds, must reproduce the driver's
+    f64 solve for restricted AND unrestricted CC (CC2/CC3 included)."""
     from tuna_tpu.cli import run
     import tuna_tpu.post.cc as cc
 
-    E_plain = run(line, suppress_output=True)[2]
-    monkeypatch.setattr(cc.jax, "default_backend", lambda: "tpu")
-    E_mixed = run(line, suppress_output=True)[2]
-    assert abs(E_plain - E_mixed) < 1e-9, (E_plain, E_mixed)
+    captured = {}
+    real_get = cc.get_cc_solver
+
+    def capture(settings):
+        solver = real_get(settings)
+
+        def wrapper(*args):
+            captured["settings"], captured["args"] = settings, args
+            return solver(*args)
+
+        return wrapper
+
+    monkeypatch.setattr(cc, "get_cc_solver", capture)
+    run(line, suppress_output=True)
+    settings, args = captured["settings"], captured["args"]
+    plain = real_get(settings)(*args)
+    mixed = cc.get_production_solver(settings)(*args)
+    n_conv, n_failed, E_mixed = mixed[4], mixed[5], mixed[6]
+    assert bool(n_conv) and not bool(n_failed)
+    assert abs(float(plain[3]) - float(E_mixed)) < 1e-9, (plain[3], E_mixed)

@@ -164,5 +164,5 @@ def test_hf_cc_pv5z_large_basis():
     """Large-basis single point (reference needs ~3 GB for the stored ERI,
     Manual section 7.2); pins the g-function integral path.  Full <=1e-8
     contract: measured agreement 2.6e-14 Ha on this box (round 4); the old
-    1e-7 relaxation predated the polished-eigh/ozaki linalg fixes."""
+    1e-7 relaxation predated the polished-eigh linalg fixes."""
     assert_parity("SPE : H H 0.74 : HF CC-PV5Z : TIGHTSCF")

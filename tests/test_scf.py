@@ -103,17 +103,14 @@ def test_guess_strategies_agree():
 
 
 def test_host_pinned_guess_branch_matches(monkeypatch):
-    """On accelerator backends the minimal-basis guess SCF is pinned to the
-    host CPU device (drivers/energy.calculate_self_consistent_guess); force
-    that branch on the CPU backend to exercise the pinning context and the
-    numpy re-commit boundary."""
+    """The minimal-basis guess SCF is pinned to the host CPU device on every
+    backend (drivers/energy.calculate_self_consistent_guess): the pinning
+    context and the numpy re-commit boundary must leave the energy unchanged
+    whatever platform JAX reports."""
     import jax as _jax
 
     _, _, E_default, _ = run("SPE : LI H 1.6 : HF 6-31G", suppress_output=True)
-    # Only the guess stage consults default_backend through this module
-    # alias; 6-31G keeps every other backend gate (lmax>=3 ERI fallback)
-    # inert.
-    monkeypatch.setattr(_jax, "default_backend", lambda: "fake-accelerator")
+    monkeypatch.setattr(_jax, "default_backend", lambda: "gpu")
     _, _, E_pinned, _ = run("SPE : LI H 1.6 : HF 6-31G", suppress_output=True)
     assert abs(E_pinned - E_default) < 1e-10
 
@@ -135,8 +132,9 @@ def test_convergence_keywords():
 def test_inverse_sqrt_repairs_noncommuting_seed_noise():
     """The S^-1/2 polish must contract |X^T S X - I| quadratically even when
     the eigh seed carries eigenvector noise that does not commute with S --
-    the TPU failure mode that froze SCF convergence at cc-pVTZ (a Newton-
-    Schulz stall at the seed error, see ops/linalg.py docstring)."""
+    the failure mode of an inexact f64 eigh that froze SCF convergence at
+    cc-pVTZ (a Newton-Schulz stall at the seed error, see ops/linalg.py
+    docstring)."""
     import numpy as np
     import jax.numpy as jnp
     from tuna_tpu.ops import linalg

@@ -4,7 +4,7 @@ The reference (h-brough/TUNA, mounted read-only at /root/reference) embeds
 basis-set exponent/coefficient tables (tuna_basis.py:247-3041) and atomic
 property tables (tuna_util.py:1676-1925) as Python literals.  These are
 physical data (Basis Set Exchange tables, CODATA-derived atomic data), which
-our TPU-native rebuild stores as JSON data files instead of code.
+our rebuild stores as JSON data files instead of code.
 
 Run from the repo root:  python tools/extract_reference_data.py
 """

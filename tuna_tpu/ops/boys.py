@@ -17,10 +17,10 @@ Both branches are evaluated for every element (XLA select), keeping the
 computation branch-free and batchable.  Accuracy ~1e-15 relative across the
 full range used by molecular integrals.
 
-The Taylor table replaces the previous 130-term Kummer cumprod evaluated
-per element: on TPU (emulated f64) the cumprod materialised (batch, 130)
-f64 intermediates through a multi-pass scan; the table path is one gather
-from a (301, 10) constant plus a 10-term Horner.  The grid values
+The Taylor table replaces a 130-term Kummer cumprod evaluated per element,
+which materialised (batch, 130) f64 intermediates through a multi-pass
+scan; the table path is one gather from a (301, 10) constant plus a
+10-term Horner.  The grid values
 themselves are computed once on the host with the same Kummer series in
 float64 numpy (200 terms, fully converged at T <= 30).
 """

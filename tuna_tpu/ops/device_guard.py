@@ -1,14 +1,15 @@
 """Accelerator-residency guard for pipeline arrays.
 
-Round 3's worst measurement bug: the lmax>=3 host-fallback ERI returned
-CPU-COMMITTED arrays, and every downstream jit (SCF, CC, the whole "TPU"
-cc-pVTZ benchmark) silently followed the committed operand onto the CPU
-backend.  XLA raises no error for this -- committed inputs simply pin the
-computation.  This guard makes the invariant explicit: when the default
-backend is an accelerator, every array the solvers consume must live there.
+An array committed to the CPU device silently pins every downstream jit that
+consumes it (SCF, CC) to the CPU backend: XLA raises no error, committed
+inputs simply move the computation.  A former host-CPU ERI fallback did
+exactly that once.  This guard makes the invariant explicit: when the
+default device is an accelerator, every array the solvers consume must live
+there.  The one stage pinned to the host on purpose (the minimal-basis
+guess) runs inside a `jax.default_device(cpu)` scope, which the guard
+respects.
 
-Call `assert_on_accelerator` after any stage that may introduce a host
-fallback (integral generation is the only one today).  The check is free:
+Call `assert_on_accelerator` after integral generation.  The check is free:
 it reads Python-side device metadata, no transfers, no sync.
 """
 

@@ -131,8 +131,6 @@ def pair_packed_to_mo_sharded(G_pair, pair_index, W, n_mo: int,
     row-sharded to column-sharded, and phase 2 again runs locally.  The
     result is the packed MO pair matrix sharded over its COLUMN axis.
     """
-    from jax.experimental.shard_map import shard_map
-
     axis = mesh.axis_names[0]
     n_dev = int(np.prod(mesh.devices.shape))
     tri = mo_pair_indices(n_mo)
@@ -158,9 +156,9 @@ def pair_packed_to_mo_sharded(G_pair, pair_index, W, n_mo: int,
         return _chunked_half_transform(H_cols.T, pair_index_dev, W, tri,
                                        row_chunk).T           # (RS, PQ_l)
 
-    fn = shard_map(local, mesh=mesh,
-                   in_specs=PartitionSpec(axis),
-                   out_specs=PartitionSpec(None, axis))
+    fn = jax.shard_map(local, mesh=mesh,
+                       in_specs=PartitionSpec(axis),
+                       out_specs=PartitionSpec(None, axis))
     sharded = jax.jit(fn)
     out = sharded(jax.device_put(
         G_pair, NamedSharding(mesh, PartitionSpec(axis))))

@@ -29,16 +29,26 @@ def device_mesh(n_devices: int | None = None, axis: str = "dp") -> Mesh:
     return Mesh(np.array(devices[:n]), (axis,))
 
 
-# Per-device HBM working budget used to decide when a tensor must be sharded
-# across the mesh instead of replicated (v5e chips carry 16 GB; leave room
-# for the executable + working set).  Override for tests / other parts.
+# Per-device budget for one tensor before it is sharded across the mesh
+# instead of replicated: a share of the device's own memory limit, leaving
+# the rest to the executable's working set (Fock build, DIIS rings, MO
+# transform).  The environment override serves tests and other setups.
 _HBM_BUDGET_ENV = "TUNA_TPU_HBM_BUDGET_BYTES"
-_HBM_BUDGET_DEFAULT = 10e9
+_HBM_BUDGET_FRACTION = 0.5
 
 
 def tp_hbm_budget_bytes() -> float:
+    """Bytes one device may hold of a single tensor.  A device that reports
+    no memory limit (the CPU backend) never shards unless the override is
+    set: no size is assumed for an unknown device."""
     import os
-    return float(os.environ.get(_HBM_BUDGET_ENV, _HBM_BUDGET_DEFAULT))
+    override = os.environ.get(_HBM_BUDGET_ENV)
+    if override:
+        return float(override)
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" not in stats:
+        return float("inf")
+    return _HBM_BUDGET_FRACTION * float(stats["bytes_limit"])
 
 
 def auto_tp_mesh(n_bytes: float, axis: str = "tp") -> Mesh | None:
@@ -63,12 +73,11 @@ def fock_build_sharded(ERI, P_total, mesh: Mesh | None = None, axis: str = "tp")
     The N^4 ERI is the memory wall for big basis sets (3-32 GB at
     cc-pV5Z/6Z, reference Manual section 7.2); sharding its first AO axis
     over the mesh keeps each chip holding N/n_dev * N^3 while J and K rows
-    are produced locally and combined with one all_gather over ICI:
+    are produced locally and combined with one all_gather over the interconnect:
 
         J_i. = sum_kl (i.|kl) P_kl      (row-local)
         K_i. = sum_kl (il|k.) P_kl      (row-local in chemists' storage)
     """
-    from jax.experimental.shard_map import shard_map
     from jax import lax
 
     if mesh is None:
@@ -93,10 +102,10 @@ def fock_build_sharded(ERI, P_total, mesh: Mesh | None = None, axis: str = "tp")
         gathered = lax.all_gather(stacked, axis, axis=1, tiled=True)
         return gathered[0], gathered[1]
 
-    J, K = shard_map(local_rows, mesh=mesh,
-                     in_specs=(spec_rows, spec_full),
-                     out_specs=(spec_full, spec_full),
-                     check_rep=False)(ERI, P_total)
+    J, K = jax.shard_map(local_rows, mesh=mesh,
+                         in_specs=(spec_rows, spec_full),
+                         out_specs=(spec_full, spec_full),
+                         check_vma=False)(ERI, P_total)
     # rows may have been padded here OR pre-padded by the caller (device_put
     # needs divisibility too) -- always slice back to the true AO count
     return J[:N], K[:N]
@@ -496,8 +505,7 @@ def _batched_restricted_cc(calculation, molecule, ERI_b, mos, eps,
         use_diis=bool(calculation.DIIS),
         max_diis=int(calculation.max_DIIS_matrices),
         damping=float(calculation.correlated_damping_parameter),
-        o_start=s,
-        use_ozaki=cc_mod.ozaki_appropriate(no, nv))
+        o_start=s)
     solver_fn = cc_mod._build_cc_solver_fn(settings)
     dummy, d3_dummy = jnp.zeros((1, 1)), jnp.zeros((1,))
 
@@ -645,8 +653,7 @@ def _batched_unrestricted_corr(calculation, molecule, meta, orbitals):
             use_diis=bool(calculation.DIIS),
             max_diis=int(calculation.max_DIIS_matrices),
             damping=float(calculation.correlated_damping_parameter),
-            o_start=s,
-            use_ozaki=cc_mod.ozaki_appropriate(n_occ_so - s, n_SO - n_occ_so))
+            o_start=s)
         solver_fn = cc_mod._build_cc_solver_fn(settings)
     dummy, d3_dummy = jnp.zeros((1, 1)), jnp.zeros((1,))
     ERI_b = jnp.asarray(np.stack([np.asarray(m["integrals"].ERI_AO)

@@ -563,12 +563,11 @@ def _make_solver(settings: TriplesSettings):
 # ---------------------------------------------------------------------------
 # Mixed-precision production path: f32 warm solve + Newton--Krylov finisher
 # ---------------------------------------------------------------------------
-# Same design as post.cc's production solver (see the rationale there): on
-# TPU every emulated-f64 op carries a large fixed cost, so the amplitudes
-# converge at native-f32 DIIS speed and each quadratic refinement step pays
-# for ONE f64 residual (= one update application over the rank-3/4 tensors)
-# plus an f32 GMRES correction solve -- two or three f64 residuals replace
-# the ~15-30 f64 iterations of the plain while_loop.
+# Same design as post.cc's production solver (see the rationale there): the
+# amplitudes converge at f32 DIIS speed and each quadratic refinement step
+# pays for ONE f64 residual (= one update application over the rank-3/4
+# tensors) plus an f32 GMRES correction solve.  Not routed by the driver
+# (the plain f64 while_loop serves every backend); reached by its tests.
 
 _TRIPLES_NEWTON_MAX = 6
 _TRIPLES_GMRES_M = 10
@@ -701,15 +700,6 @@ def _make_production_fn(settings: TriplesSettings):
     return production
 
 
-_PRODUCTION_CACHE: dict = {}
-
-
-def _get_production(settings: TriplesSettings):
-    if settings not in _PRODUCTION_CACHE:
-        _PRODUCTION_CACHE[settings] = jax.jit(_make_production_fn(settings))
-    return _PRODUCTION_CACHE[settings]
-
-
 def solve_triples_method(g, o, v, t_amplitudes, e_denominators, F, method,
                          base_name, calculation, silent, SCF_output, integrals):
     """Host driver for CISDT / CCSDT / CCSDTQ (reference dispatch:
@@ -747,57 +737,20 @@ def solve_triples_method(g, o, v, t_amplitudes, e_denominators, F, method,
         C = jnp.asarray(SCF_output.molecular_orbitals)
         H_core = jnp.asarray(integrals.H_core)
 
-    # Mixed-precision production solve on accelerators (f32 DIIS warm phase
-    # + Newton--Krylov f64 refinement fused into one device call), exactly
-    # as post.cc does for the rank-2 methods; the pure-f64 while_loop
-    # remains the CPU path and the fallback if either phase fails.
-    newton_done = False
-    printed_banner = False
-    if jax.default_backend() != "cpu":
-        production = _get_production(settings)
-        (n_warm_j, warm_ok, n_newton, nconv, nfailed, E_CC, t1, t2, t3, t4,
-         hist, parts, e_guess) = production(
-            g, F, d1, d2, d3, d4, t1_0, t2_0, t3_0, t4_0, ERI_AO, H_core, C,
-            calculation.energy_convergence, calculation.amp_conv)
-        _initial_print(float(e_guess), method, calculation, silent)
-        printed_banner = True
-        n_warm = int(n_warm_j)
-        if n_warm:
-            log(f"  (Warmed up amplitudes with {n_warm} single-precision "
-                "iterations)", calculation, 3, silent=silent)
-        if bool(nconv) and not bool(nfailed):
-            newton_done = True
-            n_steps = int(n_newton)
-            stats = np.asarray(hist)
-            for i in range(n_steps):
-                log(f"  {i + 1:3.0f} (Newton)  {stats[i, 0]:13.10f}         "
-                    f"{stats[i, 1]:13.10f}", calculation, 1, silent=silent)
-        else:
-            # seed the f64 loop with whatever the mixed phases achieved
-            t1_0 = jnp.asarray(t1, dtype=t1_0.dtype)
-            t2_0 = jnp.asarray(t2, dtype=t2_0.dtype)
-            t3_0 = jnp.asarray(t3, dtype=t3_0.dtype)
-            if rank4:
-                t4_0 = jnp.asarray(t4, dtype=t4_0.dtype)
+    if settings not in _SOLVER_CACHE:
+        _SOLVER_CACHE[settings] = _make_solver(settings)
+    solver = _SOLVER_CACHE[settings]
+    (n_steps, conv, failed, E_CC, t1, t2, t3, t4, stats, parts,
+     e_guess) = solver(
+        g, F, d1, d2, d3, d4, t1_0, t2_0, t3_0, t4_0, ERI_AO, H_core, C,
+        calculation.energy_convergence, calculation.amp_conv)
+    _initial_print(float(e_guess), method, calculation, silent)
 
-    if not newton_done:
-        if settings not in _SOLVER_CACHE:
-            _SOLVER_CACHE[settings] = _make_solver(settings)
-        solver = _SOLVER_CACHE[settings]
-        (n_steps, conv, failed, E_CC, t1, t2, t3, t4, stats, parts,
-         e_guess) = solver(
-            g, F, d1, d2, d3, d4, t1_0, t2_0, t3_0, t4_0, ERI_AO, H_core, C,
-            calculation.energy_convergence, calculation.amp_conv)
-        if not printed_banner:
-            _initial_print(float(e_guess), method, calculation, silent)
-
-        n_steps = int(n_steps)
-        stats = np.asarray(stats)
-        for i in range(n_steps):
-            log(f"  {i + 1:3.0f}           {stats[i, 0]:13.10f}         {stats[i, 1]:13.10f}",
-                calculation, 1, silent=silent)
-    else:
-        conv, failed = True, False
+    n_steps = int(n_steps)
+    stats = np.asarray(stats)
+    for i in range(n_steps):
+        log(f"  {i + 1:3.0f}           {stats[i, 0]:13.10f}         {stats[i, 1]:13.10f}",
+            calculation, 1, silent=silent)
 
     if bool(failed):
         error(f'Non-finite encountered in {base_name} iteration. Try stronger '

@@ -10,7 +10,7 @@ A and B separately:
     a real SO(2)-symmetric reference, into the HERMITIAN product eigenproblem
         (A-B)^1/2 (A+B) (A-B)^1/2  T = w^2 T,
     which runs as two on-device symmetric eigensolves (ops.linalg.eigh) --
-    no host LAPACK round trip and no general eig, which the TPU lacks;
+    no host LAPACK round trip and no general eig;
   * stability:    the orbital Hessian [[A,B],[B,A]] is orthogonally
     equivalent to diag(A+B, A-B), so its spectrum is eig(A+B) u eig(A-B);
   * Z-vector:     solves (A+B) z = -L directly.
